@@ -17,18 +17,20 @@ as PPM.
 Usage (CPU, ~2 min):
     python examples/inverse_rendering.py
 Options: RGT_DEMO_SCENE (default cube), RGT_DEMO_RES (default 32),
-RGT_DEMO_STEPS (default 80), RGT_DEMO_BACKEND (default jnp; pallas on TPU),
-RGT_DEMO_OUT (default /tmp/rgt_inverse_demo), RGT_DEMO_FREE (comma list of
-free parameter groups, default "kd"; e.g. "kd,vertices,lights_v" perturbs
-and recovers diffuse colors + mesh vertex positions + light directions
-simultaneously — the committed TPU showcase in examples/artifacts/ runs
-this at susan 256x256, see README).
+RGT_DEMO_STEPS (default 80), RGT_DEMO_BACKEND (default auto: the Pallas
+kernel on the GPU, jnp on the CPU), RGT_DEMO_OUT (default
+/tmp/rgt_inverse_demo), RGT_DEMO_FREE (comma list of free parameter groups,
+default "kd"; e.g. "kd,vertices,lights_v" perturbs and recovers diffuse
+colors + mesh vertex positions + light directions simultaneously),
+RGT_DEMO_PLATFORM (default cpu, with 8 virtual devices like the tests; gpu
+runs on the card).
 
-The committed artifact (examples/artifacts/inverse_susan_256/) was produced
-on the TPU chip with:
-    RGT_TEST_TPU=1 RGT_DEMO_SCENE=susan RGT_DEMO_RES=256 \
-    RGT_DEMO_BACKEND=pallas RGT_DEMO_FREE=kd,vertices,lights_v \
-    RGT_DEMO_STEPS=300 RGT_DEMO_OUT=examples/artifacts/inverse_susan_256 \
+The committed artifacts (examples/artifacts/inverse_susan_512/, kd only at
+512x512, and inverse_spheres_256/) are results of an earlier build of this
+renderer, e.g.:
+    RGT_DEMO_PLATFORM=gpu RGT_DEMO_SCENE=susan RGT_DEMO_RES=512 \
+    RGT_DEMO_FREE=kd RGT_DEMO_STEPS=300 \
+    RGT_DEMO_OUT=examples/artifacts/inverse_susan_512 \
     python examples/inverse_rendering.py
 """
 
@@ -41,10 +43,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, "tests"))
 
-if __name__ == "__main__" and not os.environ.get("RGT_TEST_TPU"):
+if (__name__ == "__main__"
+        and os.environ.get("RGT_DEMO_PLATFORM", "cpu") == "cpu"):
     # default to host CPU with a virtual 8-device mesh (same as the tests);
-    # set RGT_TEST_TPU=1 to drive the real chip
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    # RGT_DEMO_PLATFORM=gpu drives the card
+    os.environ["JAX_PLATFORMS"] = "cpu"
     flags = os.environ.get("XLA_FLAGS", "")
     if "host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
@@ -52,12 +55,9 @@ if __name__ == "__main__" and not os.environ.get("RGT_TEST_TPU"):
 
 
 def main() -> None:
-    import jax
-
-    if not os.environ.get("RGT_TEST_TPU"):
-        jax.config.update("jax_platforms", "cpu")
     import dataclasses
 
+    import jax
     import jax.numpy as jnp
     import numpy as np
 
@@ -83,7 +83,7 @@ def main() -> None:
     name = os.environ.get("RGT_DEMO_SCENE", "cube")
     res = int(os.environ.get("RGT_DEMO_RES", "32"))
     steps = int(os.environ.get("RGT_DEMO_STEPS", "80"))
-    backend = os.environ.get("RGT_DEMO_BACKEND", "jnp")
+    backend = os.environ.get("RGT_DEMO_BACKEND", "auto")
     out_dir = os.environ.get("RGT_DEMO_OUT", "/tmp/rgt_inverse_demo")
     free = tuple(os.environ.get("RGT_DEMO_FREE", "kd").split(","))
     kd_noise = float(os.environ.get("RGT_DEMO_KDNOISE", "0.3"))
@@ -225,9 +225,7 @@ def main() -> None:
                                     loss_blur=loss_blur)
     geo, rest = split_scene(true_scene)
     # device-resident step inputs: jnp.asarray inside the loop re-uploads
-    # the whole coord plane + target from host numpy EVERY step (measured
-    # at 256²: ~5 s/step of transfer for a 175 ms step, BASELINE.md
-    # backward-pass correction)
+    # the whole coord plane + target from host numpy EVERY step
     coords_d = jnp.asarray(coords)
     target_d = jnp.asarray(target)
     _, floor = floor_step(init_state(true_params), geo, rest,

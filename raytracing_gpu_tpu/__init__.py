@@ -1,4 +1,4 @@
-"""raytracing_gpu_tpu — a TPU-native differentiable Whitted-style ray tracer.
+"""raytracing_gpu_tpu — a differentiable Whitted-style ray tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 blink97/raytracing-gpu (a CUDA/C triangle-mesh ray tracer):
@@ -8,14 +8,14 @@ blink97/raytracing-gpu (a CUDA/C triangle-mesh ray tracer):
   reproduced exactly (see /root/reference/cpu/parser.c, cpu/parse_obj.c).
 - Primary-ray generation, Möller–Trumbore intersection, Phong shading with
   hard shadows and mirror reflections — batched, mask-predicated, static-shape
-  JAX programs that XLA can tile onto the TPU VPU/MXU.
+  JAX programs that XLA compiles for the GPU (or the CPU).
 - Acceleration structures (AABB / flat octree) built with scans, sorts and
   segment reductions instead of the reference's atomics + radix-sort kernels.
-- Pallas kernels for the intersection/traversal hot loops.
+- A Pallas (Triton) sweep kernel for the intersection hot loop on the GPU.
 - Differentiable rendering: pixel gradients flow to vertices, normals,
   materials and lights; `smooth` color mode avoids the reference's
   clamp-at-every-op quantization while `match` mode reproduces it bit-for-bit.
-- Multi-chip scaling via `jax.sharding.Mesh` + `shard_map` over a ray-tile
+- Multi-device scaling via `jax.sharding.Mesh` + `shard_map` over a ray-tile
   axis, with scene replicated per device and `psum` for parameter gradients.
 """
 

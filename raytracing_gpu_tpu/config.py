@@ -6,8 +6,8 @@ gpu/rt.cpp:67; MAX_BOUNCE=10 at gpu/raytracer.cu:113; reflection cutoff 0.01 at
 cpu/raytracer.c:21; self-hit epsilon 0.01 at cpu/hit.c:59; Möller–Trumbore
 EPSILON=1e-7 at cpu/hit.c:4). Here they are a single runtime dataclass; the
 reference's 3x3 compile-time LAYOUT x PARTITIONING build matrix becomes the
-runtime `partitioning` / `backend` fields (the TPU build has exactly one
-memory layout — padded SoA device arrays, the analog of LAYOUT_SOA, which the
+runtime `partitioning` / `backend` fields (this build has exactly one memory
+layout — padded SoA device arrays, the analog of LAYOUT_SOA, which the
 reference itself defaults to at gpu/CMakeLists.txt:7).
 """
 
@@ -39,18 +39,13 @@ class RenderConfig:
         structure (none = brute force, aabb = flat leaf-tile slab tests,
         octree = coarse-to-fine morton-tile hierarchy). Culling is
         conservative in every mode: renders are bit-identical across modes.
-      backend: "jnp" (pure-XLA batched path), "pallas" (hand-written TPU
-        VPU kernel for the intersection hot loop — fastest measured: the
-        accept/argmin epilogue bounds both kernels), or "mxu"
-        (EXPERIMENTAL: Pallas kernel with the Möller–Trumbore determinants
-        reformulated as MXU matmuls; winners may flip on geometry edges vs
-        the other backends because the arithmetic association differs.
-        Measured slower than "pallas" at every setting that passes the
-        oracle — the f32-exact 6-pass bf16 decomposition the MXU needs
-        costs more than the 60-op VPU tile; single-pass bf16 is 1.6x the
-        VPU's raw pair rate but its ~1e-3 determinant error breaks
-        renders, and no cheap conservative error bound exists under
-        cancellation. Full numbers: BASELINE.md roofline section).
+      backend: intersection path. "jnp" is the plain-XLA all-pairs path
+        (the reference every other path is tested against); "pallas" is
+        the Pallas sweep kernel (Triton route, ops/pallas_intersect.py),
+        which skips culled (ray-tile, triangle-tile) pairs — compiled on
+        the GPU, run by the Pallas interpreter on the CPU (tests only);
+        "auto" (default) picks "pallas" on the GPU and "jnp" elsewhere
+        (render.resolve_backend).
       max_bounce: bounce cap for "gpu" mode (gpu/raytracer.cu:113).
       cpu_max_depth: safety cap on the emulated recursion depth in "cpu" mode
         (the reference recursion terminates via coef < cutoff, which never
@@ -63,9 +58,12 @@ class RenderConfig:
       mt_eps: Möller–Trumbore determinant/t epsilon (cpu/hit.c:4).
       aliasing: supersampling factor for "gpu" mode (gpu/rt.cpp:67).
       ray_chunk: rays processed per XLA program instance (memory tiling of the
-        R x T intersection problem). The default is the TPU-tuned value the
-        benchmarks use; small renders are unaffected (the chunk clamps to R).
-      pad_triangles: pad triangle count to a multiple of this (TPU lane dim).
+        R x T intersection problem; small renders are unaffected, the chunk
+        clamps to R). On the jnp path a chunk holds several (ray_chunk, T)
+        f32 planes, so large scenes need a smaller chunk; deriving the
+        default from the triangle count is open work (ROADMAP).
+      pad_triangles: pad triangle count to a multiple of this (keeps the
+        padded shapes, and with them the compiled programs, few).
       pad_objects: pad object count to a multiple of this.
       unroll: bounce-loop strategy. "auto" (default) statically unrolls when
         quantize="smooth" (reverse-mode AD needs a static loop;
@@ -83,36 +81,21 @@ class RenderConfig:
         backward-pass memory stays O(1) in depth instead of O(depth)
         (activations are recomputed bounce-by-bounce on the backward sweep).
         No effect on the while_loop path or on forward-only renders.
-      block_rays: block-swizzled ray order on the kernel backends ("auto" |
-        "on" | "off"): each 256-ray sweep tile covers a compact 2D pixel
-        block instead of a 64x1 row strip, tightening the culling
-        hierarchy's ray-tile shafts. Pure reordering — images are
-        bit-identical (tests/test_api.py). "auto" == on whenever a block
-        shape divides the resolution: measured a win at every corpus size
-        against the round-5 frame profile (susan 512² −10%, cube −7%,
-        spheres 960x540 −14%, 983k grid −24%); "off" restores row-major
-        order for experiments.
-      f2b_tiles: K > 0 enables the two-round front-to-back sweep with an
-        occlusion cutoff on large culled scenes (sweep the K nearest
-        surviving triangle tiles per ray tile first, then only tiles whose
-        sound entry-distance bound beats the worst nearest-hit-so-far).
-        Bit-identical by construction; measured a LOSS on open scenes (any
-        sky ray poisons its ray tile's cutoff — BASELINE.md front-to-back
-        section), so default 0 (off); for occlusion-saturated content
-        (interiors) set K ~ 8-32.
+      block_rays: block-swizzled ray order on the kernel backend ("auto" |
+        "on" | "off"): each sweep tile covers a compact 2D pixel block
+        instead of a row strip, tightening the culling hierarchy's ray-tile
+        shafts. Pure reordering — images are bit-identical
+        (tests/test_api.py). "auto" == on whenever a block shape divides
+        the resolution; "off" restores row-major order.
 
-    Both participate in the jit/AOT executable cache key like every other
-    field (the dataclass is frozen/hashable and passed static). The only
-    remaining env knobs are import-time kernel-structure experiments
-    (RGT_TILE_T, RGT_MXU_PRECISION — ops/pallas_intersect.py): they alter
-    module-level tile constants, so they cannot vary per render and must be
-    set before first import.
+    Every field participates in the jit cache key (the dataclass is
+    frozen/hashable and passed static).
     """
 
     mode: str = "cpu"
     quantize: str = "match"
     partitioning: str = "octree"
-    backend: str = "jnp"
+    backend: str = "auto"
     max_bounce: int = 10
     cpu_max_depth: int = 64
     diff_max_depth: int = 6
@@ -126,7 +109,6 @@ class RenderConfig:
     unroll: str = "auto"
     remat: bool = True
     block_rays: str = "auto"
-    f2b_tiles: int = 0
 
     def resolve_unroll(self) -> bool:
         """True when the bounce loops should statically unroll (the
@@ -142,11 +124,9 @@ class RenderConfig:
             raise ValueError(f"quantize must be 'match' or 'smooth', got {self.quantize!r}")
         if self.partitioning not in ("none", "aabb", "octree"):
             raise ValueError(f"bad partitioning {self.partitioning!r}")
-        if self.backend not in ("jnp", "pallas", "mxu"):
+        if self.backend not in ("auto", "jnp", "pallas"):
             raise ValueError(f"bad backend {self.backend!r}")
         if self.unroll not in ("auto", "while", "static"):
             raise ValueError(f"bad unroll {self.unroll!r}")
         if self.block_rays not in ("auto", "on", "off"):
             raise ValueError(f"bad block_rays {self.block_rays!r}")
-        if self.f2b_tiles < 0:
-            raise ValueError(f"f2b_tiles must be >= 0, got {self.f2b_tiles}")

@@ -95,7 +95,7 @@ def make_sphere_grid_scene(
 ) -> Scene:
     """Large-scene stress content: an nx*ny*nz grid of tessellated spheres
     (~2*n_lat*n_lon triangles each; the defaults give 100 spheres and
-    ~99,200 triangles — 20x the reference's largest scene, spheres.svati at
+    96,000 triangles — 20x the reference's largest scene, spheres.svati at
     4,812). This is the scale at which the acceleration layer matters: a
     primary ray can hit at most a handful of spheres, so hierarchical
     culling must discard almost all (ray-tile, triangle-tile) pairs.

@@ -2,7 +2,7 @@
 //
 // The reference's L1 is native code on both trees (cpu/parser.c +
 // cpu/parse_obj.c + cpu/stack.c in C99; gpu/parser.cpp + gpu/parse_obj.cpp in
-// C++17 with std::stack). This is the same layer for the TPU framework: a
+// C++17 with std::stack). This is the same layer for this framework: a
 // single-pass tokenizer that produces the flat SoA arrays the Python side
 // wraps as a Scene pytree. Semantics are identical to
 // raytracing_gpu_tpu/models/parser.py (the definitional implementation):

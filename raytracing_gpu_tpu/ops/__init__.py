@@ -1,2 +1,2 @@
 """Compute ops: color algebra, ray generation, intersection, shading,
-acceleration structures, scans/sorts, and Pallas TPU kernels."""
+acceleration structures, scans/sorts, and the Pallas sweep kernel."""

@@ -1,6 +1,6 @@
 """Batched Möller–Trumbore intersection and nearest-hit selection.
 
-TPU-native recast of the reference's per-thread scalar loops:
+Batched recast of the reference's per-thread scalar loops:
 
 - `ray_intersect` (cpu/hit.c:4-44, gpu/hit.cu:8-78): Möller–Trumbore with
   EPSILON=1e-7, returning hit point `origin + normalize(dir)*(t*|dir|)` and
@@ -16,8 +16,8 @@ TPU-native recast of the reference's per-thread scalar loops:
 
 Instead of one CUDA thread per ray with an inner scalar triangle loop, every
 (ray, triangle) pair is evaluated as rectangular [R, T] vector ops that XLA
-tiles onto the 8x128 VPU lanes, and the winner is a masked argmin. Control
-flow (early-outs at cpu/hit.c:21-31) becomes mask predication.
+fuses, and the winner is a masked argmin. Control flow (early-outs at
+cpu/hit.c:21-31) becomes mask predication.
 
 Known deviation (documented): the reference drops an *entire object* when its
 nearest triangle's interpolated normal is exactly the zero vector
@@ -50,8 +50,7 @@ class Hit:
     dist: Any  # (R,) distance |point - origin| (inf when ~mask)
     mask: Any  # (R,) bool — True if the ray hit anything
     mat: Any = None  # optional (R,11) [ka kd ks ns nr] of the winning
-    # object, fetched with the winner row on kernel backends (one in-VMEM
-    # one-hot matmul replaces four per-ray material gathers in shading)
+    # object, gathered with the winner row on the kernel backend
 
 
 jax.tree_util.register_pytree_node(
@@ -96,9 +95,9 @@ def _mt_core(origins, dirs, vertices, normals, valid, mt_eps, self_hit_eps,
     # jnp.cross/jnp.sum-based formulations let XLA pick the reduce
     # association, which under the catastrophic cancellation of near-seam
     # determinants shifted u by up to ~6e-4 relative (measured) and flipped
-    # accept tests/winners on tessellation seams. Same layout trick as the
-    # Pallas kernel (_mt_tile): triangle components are (T,) columns, ray
-    # components (R,1) rows, every intermediate a well-tiled (R,T) plane.
+    # accept tests/winners on tessellation seams. Same layout as the Pallas
+    # kernel (_mt_block): triangle components are (T,) columns, ray
+    # components (R,1) rows, every intermediate an (R,T) plane.
     v0 = vertices[:, 0]  # (T,3)
     e1 = vertices[:, 1] - v0  # (T,3)
     e2 = vertices[:, 2] - v0
@@ -138,7 +137,7 @@ def _mt_core(origins, dirs, vertices, normals, valid, mt_eps, self_hit_eps,
     # formula frequently rounds them to an EXACT tie (first-occurrence then
     # picks the lower index). Selecting by t*|dir| instead produced a
     # systematic winner-flip stripe down the symmetry column (2-8 uint8
-    # units, spheres 960x540 — root-caused via benches/stripe_mirror.py).
+    # units, spheres 960x540 — tests/test_seam_tie.py).
     # So: reproduce the exact chain fl(o + nd*(t*|d|)) - o with left-
     # associated component sums, no shortcuts.
     # (zero-length dirs only occur on dead/masked ray lanes; guard keeps
@@ -159,14 +158,11 @@ def _mt_core(origins, dirs, vertices, normals, valid, mt_eps, self_hit_eps,
 
 
 def _pallas_nearest(origins, dirs, geometry, mt_eps, self_hit_eps,
-                    mxu: bool = False, pack=None, want_idx: bool = True,
-                    partitioning: str = "octree",
-                    f2b_tiles: int | None = None):
-    """(wdist, win) via the Pallas pair-tile kernel (+tile-level culling).
+                    pack=None, want_idx: bool = True,
+                    partitioning: str = "octree"):
+    """(wdist, win, pack) via the Pallas sweep kernel (+tile-level culling).
 
-    mxu=True uses the matmul formulation (pallas_intersect.nearest_hit_mxu):
-    Möller–Trumbore determinants as (TILE_T,16)@(16,TILE_R) MXU matmuls.
-    want_idx=False runs the dist-only kernels (cheaper epilogue — the
+    want_idx=False runs the dist-only sweep (cheaper fold — the
     shadow/collide_dist path never consumes the winner index).
     partitioning selects the kernel-side culling structure (the runtime
     analog of the reference's PARTITIONING_* matrix on the GPU hot path):
@@ -196,75 +192,26 @@ def _pallas_nearest(origins, dirs, geometry, mt_eps, self_hit_eps,
         is_leaf=lambda x: x is None,
     )
     op, dp, R = pk.pack_rays(origins, dirs)
-    if mxu:
-        # Recenter on the ray-origin centroid: Möller–Trumbore is
-        # translation-invariant, and the expanded triple products in the
-        # matmul formulation cancel catastrophically when |o| is large
-        # relative to the local geometry (measured 1e-3 rel err on susan
-        # with the camera at distance 4 — vs 1e-6 after centering; for
-        # primary rays o-c == 0 exactly, eliminating the m=o×d terms).
-        # mean over live rays only: parked/degenerate rays (origin 3e29 —
-        # dead bounces, masked shadow rays) would blow up the centroid and
-        # with it every recentered coordinate
-        live = jnp.all(jnp.abs(origins) < 1e20, axis=-1)
-        n_live = jnp.maximum(jnp.sum(live.astype(jnp.float32)), 1.0)
-        c = jnp.sum(jnp.where(live[:, None], origins, 0.0), axis=0) / n_live
-        oc = op - c[:, None]
-        mask = pk.tile_cull_mask_hierarchical(
-            oc, dp, kpack._replace(tile_aabb=kpack.tile_aabb - c),
-            partitioning)
-        rayf = pk.ray_features_mxu(oc, dp)
-        g = pk.pack_tri_features(kpack.v0 - c, kpack.e1, kpack.e2)
-        if want_idx:
-            dist, idx = pk.nearest_hit_mxu(rayf, g, mask,
-                                           float(mt_eps),
-                                           float(self_hit_eps))
-        else:
-            dist = pk.nearest_dist_mxu(rayf, g, mask, float(mt_eps),
-                                       float(self_hit_eps))
-            idx = None
+    mask = pk.tile_cull_mask_hierarchical(op, dp, kpack, partitioning)
+    if want_idx:
+        dist, idx = pk.nearest_hit_pallas(op, dp, kpack.tri, mask,
+                                          float(mt_eps), float(self_hit_eps))
     else:
-        mask = pk.tile_cull_mask_hierarchical(op, dp, kpack, partitioning)
-        if want_idx:
-            # big scenes with real culling: two-round front-to-back sweep
-            # with an occlusion cutoff (identical result, far fewer
-            # executed pair tiles — see nearest_hit_front_to_back).
-            # K comes from cfg.f2b_tiles via the caller; None falls back to
-            # the RGT_F2B_TILES import-time default for direct kernel
-            # experiments.
-            k_f2b = pk.F2B_TILES if f2b_tiles is None else f2b_tiles
-            if (k_f2b > 0 and partitioning != "none"
-                    and mask.shape[0] > 2 * k_f2b):
-                dist, idx = pk.nearest_hit_front_to_back(
-                    op, dp, kpack.v0, kpack.e1, kpack.e2, kpack.tile_aabb,
-                    kpack.tile_nonempty, mask, float(mt_eps),
-                    float(self_hit_eps), k_near=k_f2b)
-            else:
-                dist, idx = pk.nearest_hit_pallas(
-                    op, dp, kpack.v0, kpack.e1, kpack.e2, mask,
-                    float(mt_eps), float(self_hit_eps))
-        else:
-            dist = pk.nearest_dist_pallas(op, dp, kpack.v0, kpack.e1,
-                                          kpack.e2, mask, float(mt_eps),
-                                          float(self_hit_eps))
-            idx = None
-    # idx is in CLUSTERED slot space (PADDED ray length, as (nr, TILE_R) for
-    # the fetch kernel); the caller fetches winner data from pack.table
-    # (clustered too), so no perm remap (a slow gather) is needed
-    if idx is not None:
-        idx = idx.reshape(-1, pk.TILE_R)
+        dist = pk.nearest_dist_pallas(op, dp, kpack.tri, mask, float(mt_eps),
+                                      float(self_hit_eps))
+        idx = None
+    # idx is in CLUSTERED slot space (padded ray length); the caller gathers
+    # winner data from pack.table (clustered too), so no perm remap is needed.
     # Named for the rematerialization policy (render.trace_rays): the sweep
     # is stop_gradient'd (selection only), so recomputing it in the backward
     # pass is pure waste — under jax.checkpoint with
-    # save_only_these_names(*SWEEP_RESIDUALS) the tiny (R,) outputs are
-    # saved and the pair sweep runs ONCE per step instead of twice
-    # (measured: shadow+primary sweeps were 113 of the 131 ms/step device
-    # time at spheres 256², ~half of it the remat re-execution).
+    # save_only_these_names("sweep_dist", "sweep_idx") the small (R,)
+    # outputs are saved and the pair sweep runs once per step, not twice.
     from jax.ad_checkpoint import checkpoint_name
 
     dist = checkpoint_name(dist, "sweep_dist")
     if idx is not None:
-        idx = checkpoint_name(idx, "sweep_idx")
+        idx = checkpoint_name(idx[:R], "sweep_idx")
     return dist[:R], idx, pack
 
 
@@ -302,8 +249,7 @@ def _winner_uvt(origins, dirs, geometry, win, mt_eps):
 
 def collide(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
             scene_axis: str | None = None, backend: str = "jnp",
-            pack=None, partitioning: str = "octree",
-            f2b_tiles: int | None = None) -> Hit:
+            pack=None, partitioning: str = "octree") -> Hit:
     """Nearest hit over all triangles — `collide` (cpu/hit.c:72-91).
 
     Differentiable: the winner index is discrete (piecewise-constant) but the
@@ -311,37 +257,33 @@ def collide(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
     gathered geometry.
 
     scene_axis: when running under `shard_map` with the triangle arrays
-    sharded over a mesh axis (the TPU "scene/model parallel" analog — each
-    chip owns a contiguous triangle range), pass that axis name: the local
-    winner is combined across shards with an `all_gather` + first-occurrence
-    argmin, which preserves the reference's lowest-triangle-index tie-break
-    because shards hold contiguous ascending ranges. The gather is tiny
+    sharded over a mesh axis (scene/model parallel — each device owns a
+    contiguous triangle range), pass that axis name: the local winner is
+    combined across shards with an `all_gather` + first-occurrence argmin,
+    which preserves the reference's lowest-triangle-index tie-break because
+    shards hold contiguous ascending ranges. The gather is tiny
     ((S, R, 10) floats); its transpose routes hit-point/normal cotangents
     back to the owning shard automatically.
     """
     R = origins.shape[0]
     mat = None
-    if backend in ("pallas", "mxu"):
+    if backend == "pallas":
         if pack is not None and pack.table is None:
             pack = None  # caller built a dist-only pack; rebuild with table
         wdist, idx, pack = _pallas_nearest(origins, dirs, geometry, mt_eps,
-                                           self_hit_eps,
-                                           mxu=backend == "mxu", pack=pack,
-                                           partitioning=partitioning,
-                                           f2b_tiles=f2b_tiles)
+                                           self_hit_eps, pack=pack,
+                                           partitioning=partitioning)
         mask = jnp.isfinite(wdist)
-        # The fetch kernel pulls the winner's v0/e1/e2/normals/obj (and, on
-        # 32-wide tables, the owning object's materials) from the clustered
-        # table with in-VMEM one-hot matmuls (XLA's row-gather is a serial
-        # loop on TPU; its one-hot workaround materializes (R,Tp) in HBM).
-        # u/v/t/dist are then recomputed with the same arithmetic as
-        # _mt_core — bit-identical to the jnp backend and differentiable
-        # w.r.t. the table (custom-VJP scatter-add) and through it the
-        # geometry/materials, while the sweep kernel itself stays behind
-        # its AD barrier; acceptance (mask) still comes from the kernel.
+        # Gather the winner's v0/e1/e2/normals/obj (and, on material tables,
+        # the owning object's materials) from the clustered table. u/v/t/dist
+        # are then recomputed with the same arithmetic as _mt_core —
+        # differentiable w.r.t. the table (the gather's adjoint is a
+        # scatter-add) and through it the geometry/materials, while the
+        # sweep kernel itself stays behind its AD barrier; acceptance (mask)
+        # still comes from the kernel.
         from raytracing_gpu_tpu.ops import pallas_intersect as pk
 
-        rows = pk.fetch_winner_rows(pack.table, idx)[:R]
+        rows = pack.table[idx]
         wv0 = rows[:, pk.COL_V0]
         we1 = rows[:, pk.COL_E1]
         we2 = rows[:, pk.COL_E2]
@@ -351,7 +293,7 @@ def collide(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
             # Under scene sharding, materials must NOT ride the per-shard
             # winner row: material params are REPLICATED across the scene
             # axis, so their gradients must come from replicated
-            # (post-combine) compute — each shard's fetch would yield a
+            # (post-combine) compute — each shard's gather would yield a
             # PARTIAL grad that out_specs P() cannot sum. Dropping mat here
             # makes shading fall back to material_rows(mats, combined obj),
             # which is bit-identical and gradient-correct. (Vertex/normal
@@ -360,7 +302,7 @@ def collide(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
             mat = rows[:, pk.COL_MAT]
         wu, wv, wt = _winner_uvt_from(origins, dirs, wv0, we1, we2, mt_eps)
         # reference-exact distance |fl(o + nd*(t*|d|)) - o| (cpu/hit.c:36-38,
-        # 57) — same chain as _mt_core / the sweep kernels; see the seam-tie
+        # 57) — same chain as _mt_core / the sweep kernel; see the seam-tie
         # note in _mt_core
         dlen2_w = ((dirs[:, 0] * dirs[:, 0] + dirs[:, 1] * dirs[:, 1])
                    + dirs[:, 2] * dirs[:, 2])
@@ -445,19 +387,6 @@ def _combine_shard_hits(hit: Hit, axis_name: str) -> Hit:
     )
 
 
-# Minimum triangle count for the dedicated any-hit shadow kernel.
-# MEASURED DEFAULT-OFF (round 5, on-chip A/B, images bit-identical in every
-# cell): vs row-major ray order the early-out is a big win (983k-tri grid
-# shadow sweeps 146.8 -> 91.5 ms/frame), but the production path block-
-# swizzles rays at that scale, and against swizzled order the whole-frame
-# numbers are a slight LOSS (983k: 378.3 any-hit vs 372.8 dist; susan 512²:
-# +0.4 ms) — the swizzle's tighter shafts already removed the saturated
-# tiles the cutoff would skip, leaving only the per-cell occlusion-check
-# stall. Kept as an opt-in (patch this constant) for unswizzlable ray
-# distributions; tests force it to 0 to cover the kernel.
-ANY_HIT_MIN_TRIS = 1 << 30
-
-
 def collide_any(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
                 scene_axis: str | None = None, backend: str = "jnp",
                 pack=None, partitioning: str = "octree"):
@@ -465,39 +394,10 @@ def collide_any(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
 
     `has_direct_hit` (cpu/light.c:24-31) occludes on ANY hit: the nested
     `if (fdist < 1) if (fdist == 0)` makes its distance comparison dead
-    code, so the shadow path never needs the nearest distance. On the
-    pallas backend this runs a dedicated any-hit kernel whose ray tiles
-    early-out once every live lane is occluded (pallas_intersect._any_kernel
-    — the reference's per-thread shadow early exit, recast at tile
-    granularity); elsewhere it derives from collide_dist, whose 0.0-on-miss
-    contract makes `!= 0.0` the identical boolean by construction
-    (tests/test_pallas.py::test_any_hit_matches_dist).
+    code, so the shadow path never needs the nearest distance. Derived from
+    collide_dist, whose 0.0-on-miss contract makes `!= 0.0` the identical
+    boolean by construction.
     """
-    # Size-gated opt-in; see ANY_HIT_MIN_TRIS for the measured story (the
-    # kernel only pays where shadow ray tiles saturate, which the
-    # block-swizzled production ray order already prevents).
-    if backend == "pallas" and geometry.vertices.shape[0] >= ANY_HIT_MIN_TRIS:
-        from raytracing_gpu_tpu.ops import pallas_intersect as pk
-
-        origins = jax.lax.stop_gradient(origins)
-        dirs = jax.lax.stop_gradient(dirs)
-        if pack is None:
-            pack = pk.pack_geometry(geometry.vertices, geometry.valid,
-                                    geometry.normals, geometry.tri_obj)
-        kpack = jax.tree.map(
-            lambda x: None if x is None else jax.lax.stop_gradient(x), pack,
-            is_leaf=lambda x: x is None,
-        )
-        op, dp, R = pk.pack_rays(origins, dirs)
-        mask = pk.tile_cull_mask_hierarchical(op, dp, kpack, partitioning)
-        occ = pk.any_hit_pallas(op, dp, kpack.v0, kpack.e1, kpack.e2, mask,
-                                float(mt_eps), float(self_hit_eps))[:R]
-        from jax.ad_checkpoint import checkpoint_name
-
-        occ = checkpoint_name(occ, "sweep_any")  # see _pallas_nearest
-        if scene_axis is not None:
-            occ = jax.lax.pmax(occ.astype(jnp.int32), scene_axis) > 0
-        return occ
     fd = collide_dist(origins, dirs, geometry, mt_eps, self_hit_eps,
                       scene_axis, backend, pack, partitioning)
     return fd != 0.0
@@ -513,10 +413,9 @@ def collide_dist(origins, dirs, geometry, mt_eps=1e-7, self_hit_eps=0.01,
     mesh axis (no gradient flows through this value: shadowing consumes it
     only via the boolean `!= 0` occlusion test).
     """
-    if backend in ("pallas", "mxu"):
+    if backend == "pallas":
         m, _, _ = _pallas_nearest(origins, dirs, geometry, mt_eps,
-                                  self_hit_eps, mxu=backend == "mxu",
-                                  pack=pack, want_idx=False,
+                                  self_hit_eps, pack=pack, want_idx=False,
                                   partitioning=partitioning)
     else:
         dist, _, _, _, _ = _mt_core(

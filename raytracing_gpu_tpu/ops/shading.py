@@ -26,7 +26,7 @@ Reproduces cpu/light.c (and its GPU twin gpu/light.cu) including every quirk:
 Light *types* are static scene structure, so the light loop is specialized in
 Python per light: ambient lights cost two vector ops; only directional/point
 lights pay for a batched shadow `collide_dist`. Within each light the math is
-mask-predicated over the whole ray batch (TPU-uniform control flow).
+mask-predicated over the whole ray batch (uniform batched control flow).
 """
 
 from __future__ import annotations
@@ -43,21 +43,14 @@ def _dot(a, b):
 
 
 def material_rows(mats, obj):
-    """(R, 11) [ka kd ks ns nr] per hit object via one one-hot matmul.
-
-    Replaces per-field `mats.ka[hit.obj]` gathers: XLA lowers TPU row-gather
-    to a serial loop (~0.5µs/row — measured 1.6ms per gather per 65k-ray
-    chunk), while the one-hot product is an exact MXU op (every element is a
-    single 1.0*x product). Differentiable into the material tables.
-    """
+    """(R, 11) [ka kd ks ns nr] of each hit object — one row gather from
+    the stacked material table instead of one per field. Differentiable
+    into the material tables (the gather's adjoint is a scatter-add)."""
     table = jnp.concatenate(
         [mats.ka, mats.kd, mats.ks, mats.ns[:, None], mats.nr[:, None]],
         axis=1,
     )  # (O, 11)
-    O = table.shape[0]
-    onehot = (obj[:, None] == jnp.arange(O, dtype=obj.dtype)[None, :])
-    return jnp.matmul(onehot.astype(table.dtype), table,
-                      precision="highest")
+    return table[obj]
 
 
 def _normalize(a):
@@ -93,8 +86,8 @@ def shade(scene, hit: Hit, cops: ColorOps, mt_eps=1e-7, self_hit_eps=0.01,
     R = hit.point.shape[0]
     lights = scene.lights
     mats = scene.materials
-    # winning object's materials: already fetched with the winner row on
-    # kernel backends; one-hot matmul otherwise (never per-field gathers)
+    # winning object's materials: already gathered with the winner row on
+    # the kernel backend; one table gather otherwise
     mrows = hit.mat if hit.mat is not None else material_rows(mats, hit.obj)
     ka = mrows[:, 0:3]  # (R,3)
     kd = mrows[:, 3:6]
@@ -130,19 +123,17 @@ def shade(scene, hit: Hit, cops: ColorOps, mt_eps=1e-7, self_hit_eps=0.01,
         sd = jnp.concatenate(sdirs, axis=0)
         sd = jnp.where(jnp.tile(hit.mask, (K,))[:, None], sd, 0.0)
         # boolean ANY-hit (the has_direct_hit quirk: any hit occludes,
-        # distance is dead code) — on the pallas backend this is a cheaper
-        # dedicated kernel with a per-ray-tile all-occluded early-out
+        # distance is dead code)
         occ = collide_any(so, sd, scene.geometry, mt_eps, self_hit_eps,
                           scene_axis, backend, pack, partitioning)
         occluded_all = occ.reshape(K, R)
     else:
         occluded_all = None
 
-    # ---- same-kind lights BATCHED over a leading K axis (round 5): the
-    # per-light Python loop emitted ~10 small (R,3) fusions per light; one
-    # (K,R,3) pass does the identical per-element arithmetic in K-fold
-    # larger kernels (measured −1.7 ms/frame on susan 512², −6 ms on
-    # spheres 960x540, renders uint8-identical). The per-light
+    # ---- same-kind lights BATCHED over a leading K axis: the per-light
+    # Python loop emitted ~10 small (R,3) fusions per light; one (K,R,3)
+    # pass does the identical per-element arithmetic in K-fold larger
+    # kernels (renders uint8-identical). The per-light
     # CONTRIBUTIONS are still folded in declaration order below — the
     # reference's saturating accumulation order is untouched.
     contribs = {}

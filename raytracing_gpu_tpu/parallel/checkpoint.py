@@ -1,7 +1,7 @@
 """Checkpoint / resume for inverse-rendering training state.
 
 The reference has nothing long-running and therefore no checkpointing
-(SURVEY §5); the TPU framework's training loop does. Orbax handles the
+(SURVEY §5); this framework's training loop does. Orbax handles the
 actual serialization (sharded-array aware: vertex/normal params sharded over
 the scene axis restore with their shardings when a mesh/abstract target is
 supplied).

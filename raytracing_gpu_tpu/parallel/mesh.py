@@ -1,10 +1,11 @@
 """Device mesh construction.
 
 The mesh always has two named axes ("tiles", "scene"); either may have size 1.
-On a multi-host pod slice, `jax.distributed.initialize()` (called by the user
-or launcher before anything else) makes `jax.devices()` span all hosts and the
-same mesh code scales to DCN — collectives ride ICI within a slice
-automatically. This replaces the reference's only cross-device plumbing,
+On several hosts, `jax.distributed.initialize()` (called by the user or
+launcher before anything else) makes `jax.devices()` span all hosts and the
+same mesh code spans them. The axes follow the algorithm, not a network
+shape: the cards of one host reach each other at the same rate. This
+replaces the reference's only cross-device plumbing,
 host<->device cudaMemcpy (gpu/scene.cu:239-318).
 """
 
@@ -31,7 +32,8 @@ def make_mesh(n_tiles: int, n_scene: int = 1, devices=None) -> Mesh:
 
 def default_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     """Factor n devices into (tiles, scene): scene gets 2 when n is even and
-    >= 4 (so large scenes fit per-chip memory while most chips do ray work),
+    >= 4 (so large scenes fit per-device memory while most devices do ray
+    work),
     otherwise everything goes to the tiles axis."""
     devices = list(jax.devices()) if devices is None else list(devices)
     n = len(devices) if n_devices is None else n_devices

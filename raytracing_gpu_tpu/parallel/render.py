@@ -1,16 +1,16 @@
 """Sharded forward rendering: rays over the "tiles" axis, triangles over the
 "scene" axis.
 
-This is the TPU replacement for the reference's 4-pthread quadrant fan-out
+This is the JAX replacement for the reference's 4-pthread quadrant fan-out
 (cpu/raytracer.c:92-127) and per-pixel CUDA grid (gpu/raytracer.cu:198-205).
 The forward pass needs no collectives on the tiles axis at all (the final
 image assembly is a reshard XLA handles); with scene sharding each bounce
-combines per-shard nearest hits via a small `all_gather` over ICI
+combines per-shard nearest hits via a small `all_gather`
 (ops/intersect.py:_combine_shard_hits).
 
 Rays are sharded in contiguous blocks (horizontal image bands). Unlike the
 reference's 4 fixed quadrants there is no per-thread recursion-depth
-divergence to amplify stragglers: every chip runs the same masked bounce
+divergence to amplify stragglers: every device runs the same masked bounce
 iterations, and the early-exit while_loop bounds the gap between light and
 heavy bands to the longest surviving reflection path per band.
 """
@@ -110,7 +110,7 @@ def make_sharded_renderer(mesh, cfg: RenderConfig, depth: int, width: int, heigh
 
 def render_scene_sharded(scene_host: Scene, cfg: RenderConfig, mesh,
                          to_host: bool = True):
-    """Multi-chip `render_scene`: same semantics, sharded over `mesh`.
+    """Multi-device `render_scene`: same semantics, sharded over `mesh`.
 
     to_host=False returns the (possibly non-addressable) global device
     array instead of a NumPy copy — required on multi-host meshes, where

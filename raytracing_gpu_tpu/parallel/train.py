@@ -43,7 +43,11 @@ from raytracing_gpu_tpu.config import RenderConfig
 from raytracing_gpu_tpu.models.scene import Camera, Scene
 from raytracing_gpu_tpu.ops import camera as camera_ops
 from raytracing_gpu_tpu.parallel.mesh import SCENE, TILES
-from raytracing_gpu_tpu.render import _trace_chunked, required_depth
+from raytracing_gpu_tpu.render import (
+    _trace_chunked,
+    required_depth,
+    resolve_backend,
+)
 
 # PartitionSpec per parameter: triangle-indexed leaves live on the scene
 # axis, everything else is replicated.
@@ -182,6 +186,7 @@ def _loss_and_grads_fn(mesh, cfg: RenderConfig, depth: int, n_pixels: int,
                        loss_blur: float = 0.0):
     """Per-device loss+grad under shard_map; psum over tiles inside."""
     scene_axis = SCENE if mesh.shape[SCENE] > 1 else None
+    cfg = resolve_backend(cfg)
     if loss_blur > 0.0 and mesh.shape[TILES] > 1:
         raise ValueError("loss_blur requires tiles=1 (the blur window "
                          "would straddle tile-shard boundaries)")
@@ -195,7 +200,7 @@ def _loss_and_grads_fn(mesh, cfg: RenderConfig, depth: int, n_pixels: int,
                 # every step (the boxes would go stale as geometry moves);
                 # stop_gradient: culling is a boolean, conservative pre-test
                 # — no gradient flows through box coordinates. The kernel
-                # backends need nothing here: their pack (clustering +
+                # backend needs nothing here: its pack (clustering +
                 # tile AABBs + winner table) is rebuilt per step inside
                 # _trace_chunked and the table IS differentiable.
                 from raytracing_gpu_tpu.partition.apply import with_accel
@@ -231,8 +236,8 @@ def _loss_and_grads_fn(mesh, cfg: RenderConfig, depth: int, n_pixels: int,
             return jnp.sum(err * err)
 
         loss, grads = jax.value_and_grad(local_loss)(params)
-        # global loss & gradient: sum tile contributions (dp-style psum over
-        # ICI); scene-sharded grads stay local to their owning shard
+        # global loss & gradient: sum tile contributions (dp-style psum);
+        # scene-sharded grads stay local to their owning shard
         loss = jax.lax.psum(loss, TILES) / (3.0 * n_pixels)
         grads = jax.tree_util.tree_map(
             lambda g: jax.lax.psum(g, TILES) / (3.0 * n_pixels), grads

@@ -1,8 +1,8 @@
-"""Acceleration structures — the TPU-native L3 ("partitioning") layer.
+"""Acceleration structures — the L3 ("partitioning") layer in XLA.
 
 The reference's gpu/partitioning/ is ~1,290 LoC of CUDA: float atomics,
 shared-memory Blelloch scans, a 2-bit LSD radix sort and a stackful octree
-DFS (SURVEY §2.3). On TPU every one of those collapses into an XLA
+DFS (SURVEY §2.3). Here every one of those collapses into an XLA
 primitive the compiler already knows how to tile:
 
 | reference kernel                     | here                               |

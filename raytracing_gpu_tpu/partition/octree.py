@@ -112,7 +112,7 @@ def node_cull_tables(tree: "Octree") -> NodeCull:
 def octree_object_reach(origins, dirs, nc: NodeCull):
     """(R,O) bool — object reachable by the ray through the node graph.
 
-    The TPU-uniform recast of the reference's stackful DFS (gpu/hit.cu:
+    The batched, uniform recast of the reference's stackful DFS (gpu/hit.cu:
     120-169): instead of a 64-slot per-thread stack, reachability is a
     breadth-first frontier mask propagated top-down through the parent
     links — `reached[n] = hit_aabb(node n) AND reached[parent[n]]`, roots

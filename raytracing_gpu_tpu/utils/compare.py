@@ -117,7 +117,7 @@ def assert_images_close(
 ) -> ImageDiff:
     """Assert `a` matches golden `b` up to FP-boundary effects.
 
-    Rationale: the oracle is scalar gcc C; the TPU/XLA program evaluates the
+    Rationale: the oracle is scalar gcc C; the XLA program evaluates the
     same f32 formulas with different contraction (FMA) and association.
     Exactly-on-boundary subsamples (a barycentric coordinate of 0.0, a shadow
     grazing a silhouette) can flip hit/miss — but such flips can only change

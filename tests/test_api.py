@@ -49,39 +49,6 @@ def test_ray_chunking_covers_partial_tail_chunk():
         assert one.shape == (12, 20, 3)
 
 
-def test_scene_cache_key_distinguishes_same_shape_scenes():
-    """Two scenes whose PADDED leaf shapes coincide but whose static Scene
-    metadata differs (object/light counts) must get distinct AOT-executable
-    cache keys — regression for the full-corpus sweep failure where
-    triangle-ambient's compiled program was reused for cube and the
-    dispatch died on the pytree-metadata mismatch."""
-    import sys
-    from oracle import oracle_available, scene_text
-
-    if not oracle_available():
-        import pytest
-
-        pytest.skip("reference not mounted")
-    from raytracing_gpu_tpu.models.parser import parse_scene_text
-    from raytracing_gpu_tpu.models.scene import scene_to_device
-    from raytracing_gpu_tpu.render import scene_cache_key
-
-    a = scene_to_device(parse_scene_text(scene_text("triangle-ambient", 32, 32)))
-    b = scene_to_device(parse_scene_text(scene_text("cube-ambient", 32, 32)))
-    ka, kb = scene_cache_key(a), scene_cache_key(b)
-    # the padded LEAF shapes collide (1 tri and 12 tris both pad to 256) —
-    # that collision is exactly what made shapes-only keys unsafe
-    assert ka[0] == kb[0]
-    assert ka != kb
-    hash(ka), hash(kb)  # must be usable as dict keys
-    # scenes differing only in array VALUES (not structure) SHOULD share
-    # an executable — the scene is a runtime argument, not baked in
-    c = scene_to_device(parse_scene_text(scene_text("sphere-spec", 32, 32)))
-    d = scene_to_device(
-        parse_scene_text(scene_text("sphere-spec_smooth", 32, 32)))
-    assert scene_cache_key(c) == scene_cache_key(d)
-
-
 def test_block_swizzled_rays_bit_identical():
     """Block-swizzled ray order (compact 2D pixel blocks per sweep tile —
     the big-scene culling lever) is pure reordering: per-ray arithmetic is
@@ -94,30 +61,14 @@ def test_block_swizzled_rays_bit_identical():
                        block_rays="off")
     base = render_scene(scene, cfg)
     # block_rays is a static config field: flipping it reaches a DIFFERENT
-    # cached executable, no cache clearing needed (ADVICE r4 — the env-var
-    # predecessor was read at trace time but not cache-keyed)
+    # cached executable, no cache clearing needed
     swiz = render_scene(scene, dataclasses.replace(cfg, block_rays="on"))
     np.testing.assert_array_equal(base, swiz)
 
 
-def test_f2b_tiles_config_bit_identical():
-    """cfg.f2b_tiles threads through collide to the two-round front-to-back
-    sweep (round 5: config field replaces the RGT_F2B_TILES env route on the
-    render path) — bit-identical images by construction."""
-    import dataclasses
-
-    # big enough that nt > 2*K actually engages the two-round sweep
-    scene = make_sphere_scene(width=16, height=16, n_lat=20, n_lon=26)
-    cfg = RenderConfig(mode="cpu", quantize="match", backend="pallas")
-    base = render_scene(scene, cfg)
-    f2b = render_scene(scene, dataclasses.replace(cfg, f2b_tiles=1))
-    np.testing.assert_array_equal(base, f2b)
-
-
 def test_block_swizzle_non_square_resolution():
     """Swizzle must stay bit-identical at non-square, non-8-divisible
-    resolutions (the 960x540-class fallback picks a smaller block shape;
-    20x12 exercises the (4,4) candidate)."""
+    resolutions (20x12 divides only the 4x4 and smaller block shapes)."""
     import dataclasses
 
     scene = make_sphere_scene(width=20, height=12, n_lat=8, n_lon=12)

@@ -2,9 +2,9 @@
 
 The full 20-scene corpus (tests/*.svati — the reference's de-facto test
 suite, SURVEY §4) is asserted against golden renders from the compiled C
-reference under EVERY backend: jnp (pure XLA), pallas (VPU kernel,
-interpret mode on CPU — the exact kernel code the TPU compiles), and mxu
-(matmul formulation). This is the runtime form of the reference's implicit
+reference under EVERY backend: jnp (pure XLA) and pallas (the sweep kernel,
+interpret mode on CPU — the same kernel code the GPU compiles). This is the
+runtime form of the reference's implicit
 'every build-matrix variant renders the same scenes' contract
 (gpu/CMakeLists.txt:4-15), which the reference itself never automated.
 
@@ -15,7 +15,6 @@ backends run at reduced resolution to bound interpreter time; the slow-
 marked full-resolution test below reproduces the 512x512 claim in-repo.
 """
 
-import os
 
 import numpy as np
 import pytest
@@ -86,33 +85,6 @@ def test_corpus_pallas(name, res):
     run_match(name, r, r, backend="pallas")
 
 
-# The EXPERIMENTAL mxu backend runs a representative behavior-class slice in
-# the default suite (minimal / point-light shadows / smooth-normal mesh /
-# multi-light mirrors / Nr=1.0 recursion / octree stress / specular pair);
-# the remaining scenes are slow-marked (suite-runtime trim, VERDICT r4 #9 —
-# the 6-pass-precision matmul tiles make mxu the most expensive interpreter
-# sweep, and the fast slice already spans every shading/recursion class).
-MXU_FAST = ["triangle", "cube", "dir-light-shadows", "susan", "spheres",
-            "car-on-road", "island_smooth", "secret"]
-_CORPUS_BY_NAME = dict(CORPUS)
-
-
-@pytest.mark.parametrize("name", MXU_FAST, ids=MXU_FAST)
-def test_corpus_mxu(name):
-    res = _CORPUS_BY_NAME[name]
-    r = max(24, res // 2)
-    run_match(name, r, r, backend="mxu")
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("name,res",
-                         [c for c in CORPUS if c[0] not in MXU_FAST],
-                         ids=[c[0] for c in CORPUS if c[0] not in MXU_FAST])
-def test_corpus_mxu_full(name, res):
-    r = max(24, res // 2)
-    run_match(name, r, r, backend="mxu")
-
-
 def test_smooth_close_to_oracle():
     """smooth (differentiable) mode is allclose to the oracle on a scene
     without saturating colors."""
@@ -124,18 +96,17 @@ def test_smooth_close_to_oracle():
     assert_images_close(ours, golden, tol=2, context="triangle-smooth")
 
 
-# Native-resolution corpus slice for the real chip: every behavior class at
+# Native-resolution corpus for the card: every behavior class at
 # the resolution the scene files declare (camera line 1 of each .svati) —
 # point lights + shadows (cube), smooth normals (susan), 6 lights + Nr=0.85
 # mirrors (spheres), Nr=1.0 depth-capped mirrors (car-on-road), 29-object
-# scene (dark-night). VERDICT r2 asked for >=6 scenes so the "matches the
-# reference" claim is held at advertised resolution across the behavior
-# space, not one mesh.
+# scene (dark-night), so the "matches the reference" claim is held at
+# advertised resolution across the behavior space, not one mesh.
 # (name, w, h, max_frac_off_edge): the off-edge budget is the comparator
 # default except for specular/reflective scenes, where mirrors and specular
 # pows displace FP-boundary flips away from image-space edges. Non-default
-# budgets are the MEASURED off-edge flip count (TPU pallas full-res sweep,
-# 2026-08-20) plus ~2x margin; every tolerated outlier is additionally
+# budgets are the off-edge flip count measured by an earlier build's
+# full-res sweep plus ~2x margin; every tolerated outlier is additionally
 # magnitude-capped (assert_images_close max_off_edge_mag). The flip class
 # is root-caused — compiler FP-contraction resolving ulp-tied seam/shadow
 # candidates the other way (tests/test_seam_tie.py, c_mirror) — measured:
@@ -168,15 +139,12 @@ FULLRES = [
 
 
 @pytest.mark.slow
-@pytest.mark.tpu
-@pytest.mark.skipif(not os.environ.get("RGT_TEST_TPU"),
-                    reason="full-res render needs the real TPU chip "
-                           "(RGT_TEST_TPU=1)")
+@pytest.mark.gpu
 @pytest.mark.parametrize("name,w,h,off_edge", FULLRES,
                          ids=[c[0] for c in FULLRES])
-def test_full_resolution_tpu(name, w, h, off_edge):
+def test_full_resolution_on_card(gpu, name, w, h, off_edge):
     """The advertised claim, reproducible in-repo: each scene at its native
-    resolution through the flagship TPU kernel matches the C oracle under
+    resolution through the sweep kernel on the card matches the C oracle under
     the edge-aware policy (>=99.9% of pixels within ±1 off-edge; larger
     diffs on geometry/shadow edges, plus at most 0.005% isolated off-edge
     shadow-boundary flips — see assert_images_close)."""

@@ -1,7 +1,6 @@
 """Seam-tie winner selection: the center-column stripe regression tests.
 
-Root cause (bisected via the bit-exact C mirror, tests/c_mirror.py +
-benches/stripe_mirror.py): rays on the exact center column of a left-right
+Root cause (bisected via the bit-exact C mirror, tests/c_mirror.py): rays on the exact center column of a left-right
 symmetric scene travel IN the tessellation seam plane, so the two adjacent
 mirrored triangles intersect at distances 0-1 ulp apart. Two mechanisms
 decide such winners:
